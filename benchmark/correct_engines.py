@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Corrector count-oracle comparison (VERDICT r4 #8): device FM backward
+"""Corrector count-oracle comparison: device FM backward
 search (ops/kmer_count.py) vs the host window table (correct/batch.py) at
 the 1 Mb pipeline scale (166k reads, k=41).
 

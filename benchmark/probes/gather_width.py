@@ -1,13 +1,16 @@
-"""Probe: TPU row-gather cost vs row width + link bw vs buffer size/content.
+"""Probe: device row-gather cost vs row width, and device-to-host copy
+bandwidth vs buffer size/content.
 
-Decides the multi-symbol-step plane design: if gather cost is per-row
-(issue-bound), wider rows are nearly free and a pair/triple plane wins big.
+Informs the multi-symbol-step plane design: if gather cost is per row,
+wider rows are nearly free and a pair/triple plane wins; if it is per byte,
+the 228-byte pair row costs 3.6x the 64-byte single-step row.
 """
+import os
 import sys
 import time
 from functools import partial
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
 import jax
 import jax.numpy as jnp
@@ -64,7 +67,7 @@ def main():
               f"{rows_per_s/1e9:.2f} Grows/s  {rows_per_s*W*4/1e9:6.1f} GB/s"
               f" chk={chk & 1}")
 
-    # link: big buffers, random (incompressible) vs zeros
+    # device-to-host copies: big buffers, random (incompressible) vs zeros
     for mb, kind in ((64, "rand"), (64, "zero")):
         n = mb * 1024 * 1024 // 4
         h = (rng.integers(-2**31, 2**31 - 1, n, dtype=np.int32)

@@ -1,18 +1,19 @@
 """Decompose the pair-scan superstep at bench shapes + gather scaling.
 
-Questions this answers (r5 engine plan):
- 1. Does row-gather rate depend on TABLE SIZE (HBM random-bandwidth bound)
+Questions this answers:
+ 1. Does row-gather rate depend on TABLE SIZE (random-bandwidth bound)
     or only on row count (issue bound)?  -> 228B rows, 2/18/72MB tables.
  2. Is 456B (dual-row) gather the same issue cost as 228B?  -> W=114 vs 57.
  3. Where does the superstep's time go: gather / transpose / singles
     popcount / pairs popcount / update selects / emission?
 All timed as 50-step lax.scan with data-dependent state (nothing hoists).
 """
+import os
 import sys
 import time
 from functools import partial
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
 import jax
 import jax.numpy as jnp

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-stage breakdown of the overlap engine pass (VERDICT r2 item 2).
+"""Per-stage breakdown of the overlap engine pass.
 
 Times, with hard device syncs between phases:
   pack    — host 2-bit packing of the chunk

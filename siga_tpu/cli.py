@@ -1,7 +1,7 @@
 """`siga` command-line interface.
 
 Git-style subcommand dispatch mirroring the reference
-(/root/reference/src/main.cpp:17-84 + runner.h): per-command getopt tables,
+(the reference's src/main.cpp:17-84 + runner.h): per-command getopt tables,
 `--ini` config file merged under CLI options, repeated flags concatenated with
 ':'.
 """
@@ -326,7 +326,7 @@ def parse_options(command: str, argv: List[str]) -> Tuple[dict, List[str]]:
 
 def help_text() -> str:
     lines = [
-        "siga-tpu: a TPU-native string graph assembler",
+        "siga: a string graph assembler on JAX/XLA",
         "",
         "Usage: siga <command> [<args>]",
         "",
@@ -348,7 +348,7 @@ def main(argv: List[str] = None) -> int:
         print(help_text())
         return 0 if argv else 1
     if argv[0] in ("-v", "--version"):
-        print("siga-tpu version 0.1.0")
+        print("siga version 0.1.0")
         return 0
     command = argv[0]
     if command not in OPTION_TABLES:

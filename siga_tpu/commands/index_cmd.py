@@ -1,6 +1,6 @@
 """`siga index` — build the BWT/FM-index for a set of reads.
 
-Mirrors /root/reference/src/indexer.cpp: reads stripped of quality/comment,
+Mirrors the reference's src/indexer.cpp: reads stripped of quality/comment,
 forward SA+BWT -> .sai/.bwt, then reverse each read (plain reversal, not rc)
 and build the reverse index -> .rsai/.rbwt.
 """
@@ -14,6 +14,7 @@ from typing import List
 import numpy as np
 
 from ..constants import BWT_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
+from ..core import devstats
 from ..index import sa as sa_mod
 from ..io import bwtio, fastx, sai as sai_mod
 
@@ -37,6 +38,8 @@ def run(opts: dict, arguments: List[str]) -> int:
     seqs = [r.seq for r in records]
 
     t0 = time.time()
+    n_chars = sum(len(s) + 1 for s in seqs)
+    builder = sa_mod.choose_builder(n_chars, use_device)
     if not (opts.get("no-forward") or opts.get("no-reverse")):
         # both directions batch into one device program (two rows of the
         # same sort — one launch, one transfer)
@@ -54,7 +57,10 @@ def run(opts: dict, arguments: List[str]) -> int:
         build_one(rev, output + RSAI_EXT, output + RBWT_EXT, use_device)
     maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1073741824.0
     print(
-        f"[index] wall: {time.time()-t0:.3f} sec, max rss: {maxrss:.3f} GB",
+        f"[index] builder: {builder}, chars: {n_chars}, "
+        f"wall: {time.time()-t0:.3f} sec, max rss: {maxrss:.3f} GB",
         file=sys.stderr,
     )
+    if builder == "device":
+        devstats.report("index")
     return 0

@@ -14,6 +14,7 @@ import sys
 from typing import List
 
 from ..constants import ASQG_EXT, BWT_EXT, GZIP_EXT, HITS_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
+from ..core import devstats
 from ..index.fm import FMIndex
 from ..io import asqg, fastx, sai as sai_mod
 from ..overlap.builder import BatchHitConverter, Hit, HitConverter, OverlapBuilder
@@ -197,6 +198,10 @@ def build_overlaps(
     finally:
         for f in hit_files:
             f.close()
+    if engine in ("auto", "tpu"):
+        from ..ops.search import lane_devices
+
+        devstats.report("overlap", lane_devices(builder))
 
     sa_perm, _ = sai_mod.load_sai(prefix + SAI_EXT)
     rsa_perm, _ = sai_mod.load_sai(prefix + RSAI_EXT)

@@ -13,6 +13,7 @@ import sys
 from typing import List
 
 from ..constants import BWT_EXT, GZIP_EXT, HITS_EXT, RBWT_EXT, RMDUP_EXT, RSAI_EXT, SAI_EXT
+from ..core import devstats
 from ..index.fm import FMIndex
 from ..io import fastx, sai as sai_mod
 from ..overlap.builder import Hit, HitConverter, OverlapBuilder
@@ -53,6 +54,10 @@ def run(opts: dict, arguments: List[str]) -> int:
     with gzip.open(hits_path, "wt") as hf:
         for rec, hit in zip(records, hits_iter):
             hf.write(f"{rec.name}\t{rec.seq}\t{hit.serialize()}\n")
+    if engine in ("auto", "tpu"):
+        from ..ops.search import lane_devices
+
+        devstats.report("rmdup", lane_devices(builder))
 
     sa_perm, _ = sai_mod.load_sai(prefix + SAI_EXT)
     rsa_perm, _ = sai_mod.load_sai(prefix + RSAI_EXT)

@@ -1,43 +1,83 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-Built on first use with g++ (no external build deps); the shared object is
-cached next to the sources.  Falls back cleanly when a compiler is missing —
-callers check `available()`.
+Built on first use with g++ from the sources beside this file, into
+`build/` (not tracked).  The library's file name carries a key over the
+sources, the compiler flags and what `-march=native` resolves to on this
+host, so a library built from other sources, with other flags or for
+another CPU is never loaded.  A failed build is reported on stderr and
+`available()` is then false.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import sys
 import threading
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libsiga_native.so")
 _SRC = [os.path.join(_DIR, "extractor.cpp"), os.path.join(_DIR, "paired.cpp")]
+BUILD_DIR = os.path.join(_DIR, "build")
+FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
+CXX = "g++"
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> Optional[ctypes.CDLL]:
-    newest_src = max(os.path.getmtime(s) for s in _SRC)
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < newest_src:
-        cmd = [
-            "g++",
-            "-O3",
-            "-march=native",
-            "-fopenmp",
-            "-shared",
-            "-fPIC",
-            "-o",
-            _SO,
-        ] + _SRC
-        subprocess.run(cmd, check=True, capture_output=True)
-    return ctypes.CDLL(_SO)
+def host_target(flags: Sequence[str] = FLAGS) -> str:
+    """The compiler's own command line for `flags` on this host: names the
+    compiler version and the CPU model and features `-march=native` expands
+    to."""
+    out = subprocess.run(
+        [CXX, *flags, "-###", "-E", "-x", "c++", os.devnull],
+        capture_output=True, text=True, check=True,
+    ).stderr
+    return "\n".join(line for line in out.splitlines() if "cc1" in line)
+
+
+def build_key(sources: Sequence[str], flags: Sequence[str], target: str) -> str:
+    h = hashlib.sha256()
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(f.read())
+        h.update(b"\0")
+    h.update("\0".join(flags).encode())
+    h.update(b"\0" + target.encode())
+    return h.hexdigest()[:20]
+
+
+def build_library(
+    sources: Sequence[str] = _SRC,
+    flags: Sequence[str] = FLAGS,
+    build_dir: str = BUILD_DIR,
+    name: str = "libsiga_native",
+) -> str:
+    """Path of the library for (sources, flags, this host), compiled first if
+    no library of that key exists.  Concurrent processes serialize on a lock
+    file; the compiler writes a temporary file that is renamed into place."""
+    key = build_key(sources, flags, host_target(flags))
+    path = os.path.join(build_dir, f"{name}-{key}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            res = subprocess.run(
+                [CXX, *flags, "-o", tmp, *sources], capture_output=True, text=True
+            )
+            if res.returncode != 0:
+                raise RuntimeError(f"{CXX} failed:\n{res.stderr}")
+            os.replace(tmp, path)
+    return path
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -46,18 +86,19 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is None and not _tried:
             _tried = True
             try:
-                lib = _build()
-                lib.siga_extract_irreducible.restype = ctypes.c_int64
-                lib.siga_process_chunk.restype = ctypes.c_int64
-                lib.siga_format_hits.restype = ctypes.c_int64
-                lib.siga_pack_planes.restype = None
-                lib.siga_build_sa.restype = None
-                lib.siga_paired_links.restype = ctypes.c_int64
-                lib.siga_paired_free.restype = None
-                lib.siga_pack_reads_2bit.restype = ctypes.c_int64
-                _lib = lib
-            except Exception:
-                _lib = None
+                lib = ctypes.CDLL(build_library(_SRC, FLAGS, BUILD_DIR))
+            except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+                print(f"siga: native library unavailable: {e}", file=sys.stderr)
+                return None
+            lib.siga_extract_irreducible.restype = ctypes.c_int64
+            lib.siga_process_chunk.restype = ctypes.c_int64
+            lib.siga_format_hits.restype = ctypes.c_int64
+            lib.siga_pack_planes.restype = None
+            lib.siga_build_sa.restype = None
+            lib.siga_paired_links.restype = ctypes.c_int64
+            lib.siga_paired_free.restype = None
+            lib.siga_pack_reads_2bit.restype = ctypes.c_int64
+            _lib = lib
     return _lib
 
 

@@ -379,8 +379,9 @@ extern "C" {
 
 // Host-side 2-bit left-aligned read packing (ops/fm_device.py::
 // pack_reads_2bit): ASCII reads -> (n, maxlen/16) int32 words, symbol j in
-// bits [2*(j%16), +2) of word j/16.  Returns -1 if any byte is not ACGT
-// (caller falls back to the checked numpy path for the error message).
+// bits [2*(j%16), +2) of word j/16.  Returns -1 if any byte is not ACGT or
+// any read is longer than maxlen (caller falls back to the checked numpy
+// path for the error message).
 int64_t siga_pack_reads_2bit(const uint8_t* bytes, const int64_t* offsets,
                              int64_t n_seqs, int64_t n_rows, int64_t maxlen,
                              int32_t* out_words, int32_t* out_lens) {
@@ -388,8 +389,8 @@ int64_t siga_pack_reads_2bit(const uint8_t* bytes, const int64_t* offsets,
   static bool init = false;
   if (!init) {
     for (int i = 0; i < 256; ++i) lut[i] = -1;
+    // upper case only: the index ranks lowercase bytes as '$'
     lut['A'] = 0; lut['C'] = 1; lut['G'] = 2; lut['T'] = 3;
-    lut['a'] = 0; lut['c'] = 1; lut['g'] = 2; lut['t'] = 3;
     init = true;
   }
   int64_t w = maxlen / 16;
@@ -404,6 +405,10 @@ int64_t siga_pack_reads_2bit(const uint8_t* bytes, const int64_t* offsets,
     const uint8_t* s = bytes + offsets[i];
     int64_t L = offsets[i + 1] - offsets[i];
     out_lens[i] = (int32_t)(L > 0 ? L : 1);
+    if (L > maxlen) {  // would write past the row: refuse, write nothing
+      ++bad;
+      L = maxlen;
+    }
     uint32_t* row = (uint32_t*)(out_words + i * w);
     for (int64_t j = 0; j < L; ++j) {
       int8_t c = lut[s[j]];

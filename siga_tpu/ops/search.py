@@ -36,9 +36,9 @@ def _bucket_len(n_chars: int) -> int:
     """Scan-depth bucket: multiple of 16 (the 2-bit word width), floor 64.
     Multiples of 16 instead of pow2 so 100bp reads scan 112 steps, not 128.
     Above 2048 (contig re-overlap territory) buckets widen to pow2/8 so the
-    number of distinct compiled scan shapes stays bounded — a fresh shape
-    costs minutes of remote compile on this backend, dwarfing the <=12.5%
-    padded scan work."""
+    number of distinct compiled scan shapes stays bounded, at the price of
+    <=12.5% padded scan work.  The widening point is not yet measured on the
+    H100."""
     if n_chars <= 2048:
         return max(64, -(-n_chars // 16) * 16)
     step = 256
@@ -64,10 +64,9 @@ def _bucket_reads(n: int, chunk_reads: int, ndev: int) -> int:
 def chunk_size(n_rec: int, ndev: int = 1) -> int:
     """Engine chunking policy: smallish equal chunks with deep lookahead.
 
-    A dispatch containing gathers costs ~23 ms of (fully pipelinable)
-    latency on this backend while its actual device work is ~2-3 ms, so many
-    in-flight chunks hide the latency and the host stage-B/C runs
-    concurrently with the device stream."""
+    Many in-flight chunks hide the dispatch latency, and the host stage-B/C
+    runs concurrently with the device stream.  The chunk size is not yet
+    measured on the H100."""
     chunk_reads = min(CHUNK_READS, max(64, n_rec))
     if n_rec > 2048:
         n_chunks = max(-(-n_rec // CHUNK_READS), min(8, -(-n_rec // 1024)))
@@ -266,7 +265,9 @@ def _batch_overlap_ordered(
         return chunk, h
 
     starts = list(range(0, len(records), chunk_reads))
-    LOOKAHEAD = 8  # chunks in flight: dispatch latency pipelines on device
+    # chunks in flight: dispatch latency pipelines on device (the depth is
+    # not yet measured on the H100)
+    LOOKAHEAD = 8
     inflight = [dispatch(s) for s in starts[:LOOKAHEAD]]
 
     # Stage B/C (native C++) runs in a worker thread one chunk behind the
@@ -466,6 +467,12 @@ def _cached_scanner(builder, mesh, fwd_groups, rev_groups) -> DualScanner:
         scanner = DualScanner(dfms[0], dfms[1], mesh, fwd_groups, rev_groups)
         cache[key] = scanner
     return scanner
+
+
+def lane_devices(builder) -> set:
+    """Ids of the devices the builder's scans placed read lanes on."""
+    scanners = getattr(builder, "_scanners", {}).values()
+    return {i for sc in scanners for i in sc.lane_devices}
 
 
 def _native_chunk_processor(builder):

@@ -1,9 +1,9 @@
 """Batched Smith-Waterman scoring by anti-diagonal wavefront.
 
-The TPU equivalent of the reference's vendored SSE2 striped Smith-Waterman
-(/root/reference/3rdparty/ssw.c): affine-gap local alignment where every cell
+The device counterpart of the reference's vendored SSE2 striped
+Smith-Waterman (3rdparty/ssw.c): affine-gap local alignment where every cell
 of an anti-diagonal is independent, so a batch of (query, ref) pairs advances
-one diagonal per scan step with all lanes × all diagonal cells on the VPU.
+one diagonal per scan step with all lanes × all diagonal cells in parallel.
 Scores, end positions, and next-best scores come back; traceback for reported
 cigars runs on host (align/sw.py) for the handful of alignments that need it.
 """
@@ -77,30 +77,13 @@ def _sw_wavefront(queries, refs, match, mismatch, gap_open, gap_extend):
 
 
 class BatchAligner:
-    """Score many (query, ref) pairs on device.
+    """Score many (query, ref) pairs on device with the XLA wavefront."""
 
-    Prefers the Pallas wavefront kernel (ops/sw_pallas.py, ~6x the XLA scan
-    version on TPU) for the scores; end positions always come from the XLA
-    path.  Set use_pallas=False (or run on a non-TPU backend) to force XLA.
-    """
-
-    def __init__(self, match=2, mismatch=2, gap_open=3, gap_extend=1, use_pallas=None):
+    def __init__(self, match=2, mismatch=2, gap_open=3, gap_extend=1):
         self.params = (match, mismatch, gap_open, gap_extend)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() not in ("cpu",)
-        self._pallas = None
-        if use_pallas:
-            try:
-                from .sw_pallas import PallasAligner
-
-                self._pallas = PallasAligner(*self.params)
-            except Exception:  # pragma: no cover - pallas unavailable
-                self._pallas = None
 
     def best_scores(self, queries: Sequence[str], refs: Sequence[str]) -> np.ndarray:
-        """Scores only — the fast path (Pallas when available)."""
-        if self._pallas is not None:
-            return self._pallas.scores(queries, refs)
+        """Scores only."""
         return self.scores(queries, refs)[0]
 
     def scores(

@@ -16,7 +16,7 @@ Exact host implementation of the reference algorithm
   extension continues, a branch splits the group
   (src/overlap_builder.cpp:706-836).
 
-The batched TPU path (ops/search.py) accelerates the backward-search scan
+The batched device path (ops/search.py) accelerates the backward-search scan
 (stage A) and the grouped ext() lookups; this module is the semantic anchor
 both paths must agree with.
 """

@@ -1,6 +1,6 @@
 """Device-mesh data parallelism for the overlap engine.
 
-The TPU analog of the reference's OpenMP read fan-out
+The device counterpart of the reference's OpenMP read fan-out
 (/root/reference/src/parallel_framework.h:16-59): read lanes are sharded
 across a 1-D `data` mesh axis, the FM-index tables are replicated, and each
 device runs the stage-A backward-search scan on its shard.  Per-device hit

@@ -5,7 +5,7 @@ config 5): no single device ever holds the whole text, its sort state, or
 the finished BWT — every big array lives sharded along the mesh's data
 axis, and the global suffix sort runs as a BITONIC sort over the device
 dimension (log^2 D exchange stages of `ppermute` + local `lax.sort`
-merges), the TPU-native replacement for the reference's in-RAM SA-IS
+merges), the mesh replacement for the reference's in-RAM SA-IS
 (/root/reference/3rdparty/sais.hxx) whose working set is strictly
 single-node.
 
@@ -316,7 +316,6 @@ def _dist_sa_program(rounds, n, D, axis, emit_bwt):
 def _run_dist(codes: np.ndarray, mesh, axis: str, emit_bwt: bool):
     import jax
     import jax.numpy as jnp
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     D = _mesh_axis_size(mesh, axis)
@@ -336,9 +335,9 @@ def _run_dist(codes: np.ndarray, mesh, axis: str, emit_bwt: bool):
     padded[:n_real] = codes
 
     body = _dist_sa_program(rounds, n, D, axis, emit_bwt)
-    fn = shard_map(
+    fn = jax.shard_map(
         body, mesh=mesh, in_specs=(P(axis),), out_specs=P(axis),
-        check_rep=False,
+        check_vma=False,
     )
     sharded = jax.device_put(
         jnp.asarray(padded), NamedSharding(mesh, P(axis))

@@ -13,16 +13,17 @@ emits the ASQG — byte-identical to the single-process `-t N` run, which the
 
 `jax.distributed` is initialized when coordination info is provided
 (explicitly or via env), giving the processes a global barrier
-(`sync_global_devices`) on real pods; on a shared filesystem the shard
+(`sync_global_devices`) across hosts; on a shared filesystem the shard
 files themselves are the hand-off, exactly like the reference's
 file-staged pipeline (SURVEY §5.4).
 """
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import sys
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional
 
 
 def init_distributed(
@@ -63,6 +64,46 @@ def barrier(name: str = "siga") -> None:
         multihost_utils.sync_global_devices(name)
 
 
+def visible_gpus(env: Mapping[str, str]) -> List[str]:
+    """The GPU ids a process started with `env` may use: CUDA_VISIBLE_DEVICES
+    when set, else every card nvidia-smi lists (none without nvidia-smi).
+    Asks no JAX backend, so the caller reserves no device memory."""
+    if "CUDA_VISIBLE_DEVICES" in env:
+        return [c for c in env["CUDA_VISIBLE_DEVICES"].split(",") if c.strip()]
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return []
+    out = subprocess.run(
+        [smi, "--query-gpu=index", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def worker_envs(
+    num_processes: int, env: Mapping[str, str], gpus: Optional[List[str]] = None
+) -> List[Dict[str, str]]:
+    """One environment per worker process.  A JAX process reserves most of
+    a card's memory when it first uses it, so on a GPU host worker `pid`
+    sees only card `pid`; fewer cards than workers is an error.  The
+    platform is left to JAX (JAX_PLATFORMS=cpu in `env` keeps workers off
+    the cards)."""
+    envs = [dict(env) for _ in range(num_processes)]
+    if env.get("JAX_PLATFORMS") == "cpu":
+        return envs
+    gpus = visible_gpus(env) if gpus is None else gpus
+    if not gpus:
+        return envs
+    if len(gpus) < num_processes:
+        raise RuntimeError(
+            f"{num_processes} worker processes need one GPU each; "
+            f"{len(gpus)} visible ({','.join(gpus)})"
+        )
+    for pid, e in enumerate(envs):
+        e["CUDA_VISIBLE_DEVICES"] = gpus[pid]
+    return envs
+
+
 def launch_overlap_2proc(
     input_path: str,
     prefix: str,
@@ -85,12 +126,10 @@ def launch_overlap_2proc(
         s.close()
     coordinator = f"127.0.0.1:{coordinator_port}"
     procs = []
-    for pid in range(num_processes):
-        env = dict(os.environ)
+    for pid, env in enumerate(worker_envs(num_processes, os.environ)):
         env["SIGA_COORDINATOR"] = coordinator
         env["SIGA_NUM_PROCESSES"] = str(num_processes)
         env["SIGA_PROCESS_ID"] = str(pid)
-        env.setdefault("JAX_PLATFORMS", "cpu")
         cmd = [
             sys.executable,
             "-m",

@@ -82,10 +82,13 @@ def test_device_end_positions():
     assert int(rend[0]) == 10
 
 
-def test_pallas_scores_on_cpu_fallback():
-    # on the CPU test backend BatchAligner must fall back to the XLA path
+def test_best_scores_xla_wavefront():
+    # best_scores is the scores-only view of the XLA wavefront
     from siga_tpu.ops.sw_device import BatchAligner
 
     ba = BatchAligner()
-    out = ba.best_scores(["ACGTACGT"], ["TTTACGTACGTTTT"])
+    queries = ["ACGTACGT", "GGGGACGTACGT", "TTTT"]
+    refs = ["TTTACGTACGTTTT", "TTACGTACGTTT", "ACGTACGA"]
+    out = ba.best_scores(queries, refs)
+    assert [int(x) for x in out] == [naive_best_score(q, r) for q, r in zip(queries, refs)]
     assert int(out[0]) == 16

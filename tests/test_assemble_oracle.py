@@ -1,4 +1,4 @@
-"""Contig-level oracle tests (VERDICT r2 item 5).
+"""Contig-level oracle tests.
 
 Validates the real graph pipeline (overlap ASQG -> Bigraph load/EdgeCreator
 -> merge algebra -> simplify -> contigs) against `tests/naive.py`'s

@@ -1,6 +1,6 @@
 """Streaming (bounded-memory) corrector vs the one-shot batch corrector:
 identical output with small chunk sizes forcing many partial-table merges
-(VERDICT r3 item 7: O(chunk) host memory, output identical)."""
+(O(chunk) host memory, output identical)."""
 import numpy as np
 import pytest
 

@@ -30,3 +30,48 @@ def test_native_pack_parity_mixed_lengths():
 def test_native_pack_rejects_non_acgt():
     with pytest.raises(ValueError, match="non-ACGT"):
         fm_device.pack_reads_2bit(["ACGN"], 8, 16)
+
+
+def _pack_native(seqs, n_rows, maxlen, guard_words=4):
+    """Call the C packer directly; returns (rc, words, guard) where guard is
+    the region just past the last row."""
+    import ctypes
+
+    lib = native.get_lib()
+    assert lib is not None, "native library failed to build"
+    buf = np.frombuffer("".join(seqs).encode(), dtype=np.uint8)
+    offsets = np.zeros(len(seqs) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in seqs], out=offsets[1:])
+    w = maxlen // 16
+    out = np.full(n_rows * w + guard_words, 0x7A7A7A7A, dtype=np.int32)
+    lens = np.empty(n_rows, dtype=np.int32)
+    rc = lib.siga_pack_reads_2bit(
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(len(seqs)),
+        ctypes.c_int64(n_rows),
+        ctypes.c_int64(maxlen),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return rc, out[: n_rows * w], out[n_rows * w :]
+
+
+def test_native_pack_refuses_lowercase():
+    # the index ranks lowercase bytes as '$', so the packer must not accept
+    # them as bases; the checked path then names the error
+    rc, _w, _g = _pack_native(["ACGT", "acgt"], 2, 16)
+    assert rc == -1
+    assert _pack_native(["ACGT", "ACGT"], 2, 16)[0] == 0
+    with pytest.raises(ValueError, match="non-ACGT"):
+        fm_device.pack_reads_2bit(["ACGT", "acgt"], 2, 16)
+
+
+def test_native_pack_read_longer_than_maxlen():
+    # a read longer than maxlen must not write past its row
+    rc, words, guard = _pack_native(["A" * 16, "C" * 40], 2, 16)
+    assert rc == -1
+    assert (guard == 0x7A7A7A7A).all()
+    assert words[0] == 0
+    with pytest.raises(ValueError, match="longer than"):
+        fm_device.pack_reads_2bit(["A" * 16, "C" * 40], 2, 16)

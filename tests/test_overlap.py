@@ -217,7 +217,7 @@ def _dedup_reads(reads):
 def test_irreducible_matches_bruteforce_oracle():
     """Default-mode (irreducible) ED output vs the string-level oracle —
     an executable reference-parity check that does not route through the
-    FM-index machinery under test (VERDICT round-1 item 6)."""
+    FM-index machinery under test."""
     from naive import expected_irreducible_edges
 
     rng = random.Random(19)
